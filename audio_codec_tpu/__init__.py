@@ -1,15 +1,16 @@
-"""audio_codec_tpu — a TPU-native LC3plus (ETSI TS 103 634) codec framework.
+"""audio_codec_tpu — a batched LC3plus (ETSI TS 103 634) codec framework.
 
-Batched JAX/XLA/Pallas reimplementation of the LC3plus encoder/decoder:
-thousands of independent streams ride a [n_streams, ...] batch axis, sharded
-over device meshes with shard_map; the ETSI reference codec is used only as
-the conformance oracle (see SURVEY.md).
+JAX/XLA reimplementation of the LC3plus encoder/decoder: thousands of
+independent streams ride a [n_streams, ...] batch axis, sharded over device
+meshes with shard_map; the ETSI reference codec is used only as the
+conformance oracle (see SURVEY.md).
 """
 import jax as _jax
 
-# The codec's transforms run as f32 matmuls on the MXU; the TPU default
-# (bf16 inputs) is not accurate enough for conformance (RMS >= 14-bit vs the
-# ETSI reference), so f32-true matmul precision is forced package-wide.
+# The codec's transforms, SNS and PLC analysis run as f32 matmuls. On the GPU
+# the default precision lets XLA run them in TF32 (about 3 decimal digits),
+# which is not accurate enough for conformance (RMS >= 14 bits against the
+# ETSI reference), so true-f32 matmuls are forced package-wide.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .config import Config

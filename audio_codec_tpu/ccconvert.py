@@ -1,6 +1,6 @@
 """Channel coder converter — pack/unpack LC3plus FEC protection.
 
-TPU-native analog of the reference's standalone ccConvert tool
+Batched analog of the reference's standalone ccConvert tool
 (fixed_point/ccConvert.c:107-796): converts an unprotected LC3plus
 bitstream into a channel-coded one (``pack``) and back (``unpack``)
 without re-encoding the audio.

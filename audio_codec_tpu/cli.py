@@ -1,4 +1,4 @@
-"""ETSI-compatible command-line interface for the TPU codec.
+"""ETSI-compatible command-line interface for the batched codec.
 
 Drop-in analog of the reference CLI (codec_exe.c:141-520): WAV in/out, the
 reference's bitstream container (and G.192), -E/-D/encode+decode modes,
@@ -22,7 +22,7 @@ import numpy as np
 
 def _parse_args(argv):
     p = argparse.ArgumentParser(prog="audio_codec_tpu",
-                                description="TPU-native LC3plus codec")
+                                description="batched LC3plus codec")
     p.add_argument("-E", action="store_true", help="encode only")
     p.add_argument("-D", action="store_true", help="decode only")
     p.add_argument("-q", action="store_true", help="quiet")
@@ -78,6 +78,8 @@ def _loopy(arr: np.ndarray, i: int):
 
 def main(argv=None) -> int:
     args = _parse_args(argv if argv is not None else sys.argv[1:])
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from .config import Config
     from .engine import StreamEncoder, StreamDecoder
     from .utils import bitstream_io as bio

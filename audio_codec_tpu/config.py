@@ -1,4 +1,4 @@
-"""Static frame/bitrate configuration for the TPU LC3plus codec.
+"""Static frame/bitrate configuration for the batched LC3plus codec.
 
 Reproduces the configuration-derivation math of the reference
 (setup_enc_lc3.c:31-393 / setup_dec_lc3.c:33-300) as a frozen dataclass.

@@ -8,11 +8,13 @@ ops/fixed_ltpf.py) and the fixed output rounding (dec_lc3.c:283-300).
 
 This is the MD5-gate decoder (testvec/testvecCheck.pl, md5_dec.txt): its
 int16 output must match the ETSI fixed-point decoder bit-for-bit.  The
-TPU serving path (models/decoder.py) remains the float chain; this
+serving path (models/decoder.py) remains the float chain; this
 NumPy/host path exists for conformance and as the oracle for the batched
-int32 TPU port.
+device port (fixed_decoder_dev.py).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -30,6 +32,19 @@ class _BerError(Exception):
     """Bit-error detected mid-parse (SNS MPVQ index out of range)."""
 
 
+@functools.cache
+def _frontend_jit(cfg: Config):
+    import jax
+
+    @jax.jit
+    def run(buf, bfi_a, bl, br):
+        side = bits.parse_side_info(cfg, buf)
+        dec = ari.decode(cfg, buf, side, bfi_in=bfi_a,
+                         be_bp_left=bl, be_bp_right=br)
+        return side, dec
+    return run
+
+
 def _frontend(cfg: Config, frames_u8: np.ndarray, bfi_in=None,
               be_bp_left=None, be_bp_right=None):
     """Side-info parse + arithmetic decode for [n_frames, nbytes] frames
@@ -38,26 +53,9 @@ def _frontend(cfg: Config, frames_u8: np.ndarray, bfi_in=None,
     (bfi==2 lanes abort at the corrupt byte range, ari_codec.c:1824-1921)."""
     import jax
 
-    if bfi_in is None:
-        @jax.jit
-        def run(buf):
-            side = bits.parse_side_info(cfg, buf)
-            dec = ari.decode(cfg, buf, side)
-            return side, dec
-
-        side, dec = run(frames_u8.astype(np.int32))
-    else:
-        @jax.jit
-        def run_pc(buf, bfi_a, bl, br):
-            side = bits.parse_side_info(cfg, buf)
-            dec = ari.decode(cfg, buf, side, bfi_in=bfi_a,
-                             be_bp_left=bl, be_bp_right=br)
-            return side, dec
-
-        side, dec = run_pc(frames_u8.astype(np.int32),
-                           np.asarray(bfi_in, np.int32),
-                           np.asarray(be_bp_left, np.int32),
-                           np.asarray(be_bp_right, np.int32))
+    pc = (None, None, None) if bfi_in is None else tuple(
+        np.asarray(a, np.int32) for a in (bfi_in, be_bp_left, be_bp_right))
+    side, dec = _frontend_jit(cfg)(frames_u8.astype(np.int32), *pc)
     return jax.tree.map(np.asarray, (side, dec))
 
 

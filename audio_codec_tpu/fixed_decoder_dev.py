@@ -13,7 +13,7 @@ This is the production-shaped counterpart of the reference's fixed decoder
 Requires jax_enable_x64 in a dedicated process (i64 Word32 products);
 tests/test_fixed_dev.py subprocess-validates its PCM output bit-for-bit
 against the host FixedDecoder on the MD5-gate testvec points, and
-tools/bench_fixed_dev.py reports fixed_decode_streams_per_chip.
+`chip_smoke.py --fixed-dev` does the same on the GPU with its compile time.
 
 Frontier (same as the host conformance rig, fixed_imdct.py:17-19): 10 ms
 frames at the cfft sizes 40..240; PLC/PC concealment frames stay on the

@@ -8,14 +8,23 @@ and every op consumes/returns state functionally.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .. import tables as T
 from ..config import Config
 from ..ops import plc_adv, plc_phecu
+
+
+def _state_pytree(cls):
+    """Frozen dataclass registered as a pytree whose leaves are all of its
+    fields, in declaration order; `.replace(**fields)` returns an updated
+    copy."""
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(dataclasses.dataclass(frozen=True)(cls))
 
 
 def _adv(cfg: Config, n: int) -> int:
@@ -28,7 +37,7 @@ def _ph(cfg: Config, n: int) -> int:
     return n if (cfg.plc_mode and cfg.frame_dms == 100) else 0
 
 
-@struct.dataclass
+@_state_pytree
 class EncState:
     # MDCT overlap memory: raw input tail x[la_zeroes:] (mdct.c:100-111)
     mdct_mem: jnp.ndarray          # [B, frame_length - la_zeroes]
@@ -103,7 +112,7 @@ def ltpf_dec_lens(cfg: Config) -> tuple[int, int, int, int]:
     return old_x_len, old_y_len, tilt_len, inter_len_r
 
 
-@struct.dataclass
+@_state_pytree
 class DecState:
     # IMDCT overlap-add memory (imdct.c:49-58)
     imdct_mem: jnp.ndarray         # [B, frame_length - la_zeroes]

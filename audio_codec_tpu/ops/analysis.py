@@ -6,7 +6,7 @@ Covers the reference stages (SURVEY.md §2.1):
 - LTPF parameter coder (ltpf_coder.c:34-263)  → all-lag correlation + masked
   argmax searches (no data-dependent control flow)
 - attack detector     (attack_detector.c:13-104)
-- per-band energy     (per_band_energy.c:13-30) → single MXU matmul
+- per-band energy     (per_band_energy.c:13-30) → single matmul
 - bandwidth detector  (detect_cutoff_warped.c:13-83) → masked fixed-trip scans
 
 Shapes: B = n_streams; all functions are shape-static and jit/vmap/shard_map

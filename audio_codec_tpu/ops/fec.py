@@ -1,6 +1,6 @@
 """LC3plus channel coder (error protection): batched GF(16) Reed-Solomon.
 
-TPU-native equivalent of the reference's fixed-point channel coder
+Batched equivalent of the reference's fixed-point channel coder
 (fixed_point/al_fec.c:481 fec_encoder, :711 fec_decoder). The reference
 processes one slot at a time with scalar table lookups and data-dependent
 control flow; here every step is a batched int32 array op over [B, ...]:

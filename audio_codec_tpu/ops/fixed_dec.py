@@ -18,7 +18,7 @@ fixed IMDCT (dct4_fx over BASOP_cfft) and the fixed LTPF — are the
 ops/fixed_imdct.py, ops/fixed_ltpf.py and the PLC modules complete the chain.
 
 Pure NumPy int64 (values constrained to 16/32-bit ranges): this is the
-conformance-mode path, not the TPU serving path; the float chain in
+conformance-mode path, not the serving path; the float chain in
 models/decoder.py remains the production decoder.
 """
 from __future__ import annotations

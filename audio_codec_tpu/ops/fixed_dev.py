@@ -11,8 +11,8 @@ reuses them verbatim over jnp tracers.
 
 Requires jax_enable_x64 (Word32 x Word32 products need exact i64; the
 fixed_dec primitives assert this). Run in a dedicated process — see
-tools/bench_fixed_dev.py and tests/test_fixed_dev.py, which subprocess like
-tests/test_multihost.py does.
+tests/test_fixed_dev.py, which subprocesses like tests/test_multihost.py
+does, and `chip_smoke.py --fixed-dev`, which enables x64 at start.
 
 Bit-exactness contract: tests/test_fixed_dev.py compares every stage and
 the full PCM output against the host FixedDecoder on real testvec frames

@@ -7,7 +7,7 @@ Reference stages (SURVEY.md §2.1):
 - processMdctShaping_fl      (mdct_shaping.c:13-22)
 
 All searches are reformulated as masked argmin/argmax over fixed codebooks
-(MXU matmuls for the 2x32 stage-1 VQ) and fixed-trip pulse loops for the PVQ
+(matmuls for the 2x32 stage-1 VQ) and fixed-trip pulse loops for the PVQ
 pyramid search — no data-dependent control flow.
 """
 from __future__ import annotations

@@ -1,11 +1,10 @@
-"""Low-delay MDCT / IMDCT as batched MXU matmuls.
+"""Low-delay MDCT / IMDCT as batched dense matmuls.
 
 The reference runs MDCT = fold/window + DCT-IV via a half-length complex FFT
-(mdct.c:72-126, dct4.c:51-95) one frame at a time. On TPU the DCT-IV of a
-whole stream batch is a single [B, N] x [N, N] matmul on the systolic array —
-exact, static-shaped and fused by XLA with the windowing/fold elementwise ops.
-At N<=960 the dense transform is compute-trivial next to HBM traffic, so this
-beats an FFT call tree on real batches.
+(mdct.c:72-126, dct4.c:51-95) one frame at a time. Here the DCT-IV of a
+whole stream batch is a single [B, N] x [N, N] f32 matmul, static-shaped and
+fused by XLA with the windowing/fold elementwise ops. Whether an FFT-based
+DCT-IV is faster at the larger N (HR, N=960) is not measured yet.
 """
 from __future__ import annotations
 
@@ -24,19 +23,29 @@ def _win(cfg: Config) -> np.ndarray:
 def _dct4_apply(folded: jnp.ndarray, Mt: jnp.ndarray) -> jnp.ndarray:
     """folded [B, N] @ Mt [N, N] -> [B, N] DCT-IV.
 
-    On accelerators this is a plain MXU matmul. On the CPU backend (the
-    conformance / CLI path, tools/conformance.py) the product+sum runs with
-    Dekker-split exact products and Neumaier compensated accumulation: the
-    reference float encoder computes the same transform with sequential FFT
-    butterflies, and plain pairwise f32 accumulation leaves our spectrum
-    ~30 ulp away from the reference's — enough to flip quantizer dead-zone
-    ties (xq +-1 on single bins) and cost the sqam encode leg a full RMS
-    bit (CONFORMANCE_r04 sqam_thetest24_48000). The compensated path is
-    ~3 ulp from the correctly rounded result, which is closer to the
-    reference than the reference's own rounding error.
+    The branch follows the device that runs the computation
+    (`lax.platform_dependent`), not the process's default backend.
+    On the CPU (the conformance / CLI path, tools/conformance.py) the
+    product+sum runs with Dekker-split exact products and Neumaier
+    compensated accumulation: the reference float encoder computes the same
+    transform with sequential FFT butterflies, and plain pairwise f32
+    accumulation leaves our spectrum ~30 ulp away from the reference's —
+    enough to flip quantizer dead-zone ties (xq +-1 on single bins) and cost
+    the sqam encode leg a full RMS bit (CONFORMANCE_r04 sqam_thetest24_48000).
+    The compensated path is ~3 ulp from the correctly rounded result, which
+    is closer to the reference than the reference's own rounding error.
+    Every other device takes the plain f32 product (no TF32: the package
+    sets matmul precision "highest").
     """
-    if jax.default_backend() != "cpu":
-        return jnp.dot(folded, Mt, preferred_element_type=jnp.float32)
+    return jax.lax.platform_dependent(folded, Mt, cpu=_dct4_compensated,
+                                      default=_dct4_plain)
+
+
+def _dct4_plain(folded: jnp.ndarray, Mt: jnp.ndarray) -> jnp.ndarray:
+    return jnp.dot(folded, Mt, preferred_element_type=jnp.float32)
+
+
+def _dct4_compensated(folded: jnp.ndarray, Mt: jnp.ndarray) -> jnp.ndarray:
     B = folded.shape[0]
 
     def split(v):  # Veltkamp split at 2^12+1 for f32

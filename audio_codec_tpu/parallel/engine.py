@@ -1,9 +1,9 @@
-"""Pod-scale stream engine: shard_map'd encode/decode over a device mesh.
+"""Multi-device stream engine: shard_map'd encode/decode over a device mesh.
 
 The production serving path (SURVEY.md §2.7 / §5):
-- streams are sharded over a 1-D ('streams',) mesh spanning chips and hosts;
+- streams are sharded over a 1-D ('streams',) mesh spanning the devices;
 - per-stream carry state (MDCT/OLA memory, LTPF history, PLC context,
-  gain-loop memory — the EncState/DecState pytrees) stays chip-local;
+  gain-loop memory — the EncState/DecState pytrees) stays device-local;
 - a frame step is one shard_map'd jit call; multiple frames can be fused
   with lax.scan over a [T, B, N] PCM block (frames of one stream are
   sequential by construction, so scan-over-time is the only legal order);
@@ -15,7 +15,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import Config
@@ -46,9 +45,9 @@ class ShardedEncoder:
             st, out, _ = enc_m.encode_frame(cfg, st, pcm)
             return st, out
 
-        fn = shard_map(local_step, mesh=self.mesh,
-                       in_specs=(spec, spec), out_specs=(spec, spec),
-                       check_rep=False)
+        fn = jax.shard_map(local_step, mesh=self.mesh,
+                           in_specs=(spec, spec), out_specs=(spec, spec),
+                           check_vma=False)
         return jax.jit(fn)
 
     def step(self, pcm):
@@ -66,10 +65,10 @@ class ShardedEncoder:
                 return st, out
             return jax.lax.scan(body, st, pcm_block)
 
-        fn = shard_map(local_scan, mesh=self.mesh,
-                       in_specs=(spec, P(None, "streams")),
-                       out_specs=(spec, P(None, "streams")),
-                       check_rep=False)
+        fn = jax.shard_map(local_scan, mesh=self.mesh,
+                           in_specs=(spec, P(None, "streams")),
+                           out_specs=(spec, P(None, "streams")),
+                           check_vma=False)
         return jax.jit(fn)
 
     def encode_block(self, pcm_block):
@@ -94,9 +93,9 @@ class ShardedDecoder:
             st, pcm, _ = dec_m.decode_frame(cfg, st, payload, bfi)
             return st, pcm
 
-        self._step = jax.jit(shard_map(
+        self._step = jax.jit(jax.shard_map(
             local_step, mesh=self.mesh, in_specs=(spec, spec, spec),
-            out_specs=(spec, spec), check_rep=False))
+            out_specs=(spec, spec), check_vma=False))
 
     def step(self, payload, bfi):
         self.state, pcm = self._step(self.state, payload, bfi)
@@ -111,6 +110,7 @@ def migrate_streams(mesh: Mesh, tree, perm: list[tuple[int, int]]):
     def shift(x):
         return jax.lax.ppermute(x, "streams", perm)
 
-    fn = shard_map(lambda t: jax.tree_util.tree_map(shift, t), mesh=mesh,
-                   in_specs=(spec,), out_specs=spec, check_rep=False)
+    fn = jax.shard_map(lambda t: jax.tree_util.tree_map(shift, t),
+                       mesh=mesh, in_specs=(spec,), out_specs=spec,
+                       check_vma=False)
     return jax.jit(fn)(tree)

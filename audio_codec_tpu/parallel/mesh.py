@@ -2,10 +2,12 @@
 
 Parallelism model (SURVEY.md §2.7): LC3plus frames are tiny and frame-serial
 per stream, so ALL parallelism rides the stream axis. A 1-D ('streams',)
-mesh spans every chip (and every host under jax.distributed); state lives
-chip-local as [n_streams, ...] shards, frames advance in lock-step, and the
-only collectives are metric reductions (psum) and stream migration
-(ppermute / all_to_all) when rebalancing — all over ICI.
+mesh spans every device (and every host under jax.distributed); state lives
+device-local as [n_streams, ...] shards, frames advance in lock-step, and
+the only collectives are metric reductions (psum) and stream migration
+(ppermute / all_to_all) when rebalancing. The mesh follows the algorithm
+alone: on GPUs joined all to all by NVLink every device reaches every other
+at the same rate, so no torus shape is imposed.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def shard_state(mesh: Mesh, tree):
 
     Works on single-host meshes (plain device_put) and multi-host meshes
     (each process contributes its local slice; jax.make_array assembles the
-    global array over DCN — the SURVEY §2.7 'hosts' axis)."""
+    global array across hosts — the SURVEY §2.7 'hosts' axis)."""
     sh = shard_streams(mesh)
     if _single_host(mesh):
         return jax.tree_util.tree_map(lambda x: jax.device_put(x, sh), tree)
@@ -63,9 +65,9 @@ def distributed_init(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Multi-host entry point (jax.distributed, SURVEY.md §2.7): call once
     per process before any backend use; jax.devices() then spans all hosts
-    and stream_mesh() returns the global DCN+ICI mesh. On TPU pods the
-    arguments auto-detect from the metadata server; on CPU/GPU fleets pass
-    them explicitly (or via JAX_COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID)."""
+    and stream_mesh() returns the global mesh. Pass the arguments explicitly
+    (or via JAX_COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID): nothing in a
+    plain GPU or CPU cluster lets JAX detect them."""
     import os
     kw = {}
     if coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS"):

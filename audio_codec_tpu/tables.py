@@ -1,11 +1,11 @@
-"""Normative LC3plus constant tables (ETSI TS 103 634) for the TPU codec.
+"""Normative LC3plus constant tables (ETSI TS 103 634) for the batched codec.
 
 Loads the extracted table pack (data/tables.npz, produced by
 tools/extract_tables.py from the reference constants — see SURVEY.md §2.4,
 reference floating_point/constants.c:13-3167) and exposes them as NumPy
-arrays plus a set of *derived* TPU-friendly operators:
+arrays plus a set of *derived* dense operators for batched execution:
 
-- dense DCT-II / DCT-IV matrices (the MDCT/IMDCT/SNS transforms run as MXU
+- dense DCT-II / DCT-IV matrices (the MDCT/IMDCT/SNS transforms run as
   matmuls instead of the reference's FFT call trees, mdct.c:72-126, dct4.c),
 - band-aggregation matrices (per-band energy / scale-factor expansion become
   matmuls instead of the ragged loops in per_band_energy.c:13-30),
@@ -48,7 +48,7 @@ def t(name: str) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Derived transform matrices (MXU-friendly dense forms)
+# Derived transform matrices (dense forms for batched matmuls)
 # --------------------------------------------------------------------------
 
 @functools.cache
@@ -159,7 +159,7 @@ def resampler_matrix(fs_idx: int, frame_length: int) -> np.ndarray:
 
     Replays the upsample→240-tap lowpass→downsample index arithmetic of
     process_resamp12k8_fl (resamp12k8.c:44-58) into one dense matrix so a
-    frame resamples as a single MXU matmul: y = buf @ R.T.
+    frame resamples as a single matmul: y = buf @ R.T.
     """
     fs = FS_TABLE[fs_idx]
     stride = int(t("up_fac")[fs_idx])

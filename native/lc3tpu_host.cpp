@@ -1,6 +1,6 @@
-// Native host-side runtime helpers for the TPU LC3plus engine.
+// Native host-side runtime helpers for the batched LC3plus engine.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); these are the host hot
+// The accelerator owns the compute path (JAX/XLA); these are the host hot
 // loops around it when serving large stream batches — the role the
 // reference fills with its C CLI/runtime layer (codec_exe.c bitstream
 // framing, tinywave PCM conversion; SURVEY.md §2.4) and the RTL fills with

@@ -23,10 +23,24 @@ CACHE = REPO / "tests/.cache"
 _DTYPES = {"f32": np.float32, "i32": np.int32, "u8": np.uint8, "i16": np.int16}
 
 
+ORACLE_ABSENT = 3  # tools/build_oracle.sh: no .oracle/ build, no ETSI source
+
+
 def ensure_oracle() -> None:
-    if not ORACLE_FL.exists():
-        subprocess.run([str(REPO / "tools/build_oracle.sh")], check=True)
-        subprocess.run(["python", str(REPO / "tools/instrument_oracle.py")], check=True)
+    """Build the oracle on first use. Skips the calling test when neither
+    the .oracle/ binaries nor the ETSI reference source exist; any other
+    build failure fails the test."""
+    if ORACLE_FL.exists():
+        return
+    r = subprocess.run([str(REPO / "tools/build_oracle.sh")],
+                       capture_output=True, text=True)
+    if r.returncode == ORACLE_ABSENT:
+        import pytest
+        pytest.skip(f"ETSI oracle absent: {r.stderr.strip()}")
+    if r.returncode:
+        raise subprocess.CalledProcessError(r.returncode, r.args,
+                                            r.stdout, r.stderr)
+    subprocess.run(["python", str(REPO / "tools/instrument_oracle.py")], check=True)
 
 
 def _run(args: list[str], dump_dir: Path | None = None) -> None:

@@ -100,7 +100,7 @@ def test_state_signature_stable_across_step(fs, bitrate):
     (shape+dtype+weak_type) as the init state: any divergence makes every
     state-feedback loop (serving, bench.py) recompile on its second call —
     round 4's decode bench measured exactly such a 27 s recompile instead
-    of throughput (docs/PERF.md)."""
+    of throughput (PERF.md)."""
     from audio_codec_tpu.models import decoder, encoder, state as S
     import jax.numpy as jnp
 
@@ -120,3 +120,30 @@ def test_state_signature_stable_across_step(fs, bitrate):
     dst2, _, _ = jax.jit(lambda s, f: decoder.decode_frame(cfg, s, f))(
         dst, out.astype(jnp.int32))
     assert sig(dst) == sig(dst2)
+
+
+@pytest.mark.parametrize("kind", ["enc", "dec"])
+def test_state_pytree_roundtrip_and_replace(kind):
+    """EncState/DecState are frozen dataclasses registered as pytrees: every
+    field is a leaf, in declaration order; flatten/unflatten is lossless
+    and .replace returns an updated copy."""
+    import dataclasses
+    from audio_codec_tpu.models import state as S
+
+    cfg = Config(fs_in=48000, bitrate=64000, plc_mode=1)
+    st = (S.enc_state_init if kind == "enc" else S.dec_state_init)(cfg, 3)
+    names = [f.name for f in dataclasses.fields(st)]
+    paths, treedef = jax.tree_util.tree_flatten_with_path(st)
+    assert [jax.tree_util.keystr(p) for p, _ in paths] == [f".{n}" for n in names]
+    back = jax.tree_util.tree_unflatten(treedef, [v for _, v in paths])
+    assert type(back) is type(st)
+    for n in names:
+        assert getattr(back, n) is getattr(st, n)
+
+    first = names[0]
+    new_leaf = getattr(st, first) + 1
+    st2 = st.replace(**{first: new_leaf})
+    assert getattr(st2, first) is new_leaf
+    assert all(getattr(st2, n) is getattr(st, n) for n in names[1:])
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        setattr(st, first, new_leaf)

@@ -12,6 +12,11 @@ REF=${LC3_REF:-/root/reference/LC3plus_ETSI_src_v17171_20200723}
 ORACLE="$REPO/.oracle"
 
 if [[ ! -x "$ORACLE/src/floating_point/LC3plus" || ! -x "$ORACLE/src/fixed_point/LC3plus" ]]; then
+  if [[ ! -d "$ORACLE/src" && ! -d "$REF/src" ]]; then
+    # exit code 3 = oracle absent (tests/oracle.py skips on it)
+    echo "no ETSI reference source at $REF (set LC3_REF) and no .oracle/ build" >&2
+    exit 3
+  fi
   mkdir -p "$ORACLE"
   [[ -d "$ORACLE/src" ]] || cp -r "$REF/src" "$ORACLE/src"
   [[ -d "$ORACLE/testvec" ]] || cp -r "$REF/testvec" "$ORACLE/testvec"

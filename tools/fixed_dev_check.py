@@ -24,8 +24,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".cache/jax"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+
+from audio_codec_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 

@@ -29,8 +29,8 @@ from pathlib import Path
 sys.path.insert(0, ".")
 import jax
 jax.config.update("jax_platforms", os.environ.get("LC3TPU_CONF_PLATFORM", "cpu"))
-jax.config.update("jax_compilation_cache_dir", ".cache/jax")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from audio_codec_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import tools.conformance as C
 idx = int(os.environ["LC3TPU_SQAM_IDX"])
 C.QUALITY_POINTS = [C.QUALITY_POINTS[idx]]
